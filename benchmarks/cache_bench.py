@@ -6,7 +6,7 @@ training fetches per-batch rows. Compares epoch time and miss rate across cache
 fractions (0% = every row from the host, 100% = all hits) plus the device-resident
 ideal (features already in HBM, plain device gather).
 
-Run on the TPU: ``python benchmarks/cache_bench.py``; env: CB_NODES, CB_DIM, CB_OUT.
+Run on the GPU: ``python benchmarks/cache_bench.py``; env: CB_NODES, CB_DIM, CB_OUT.
 """
 import json
 import os
@@ -98,7 +98,7 @@ def main():
     def epoch_time_overlapped(fetch, reps=3):
         """One-batch-ahead fetch prefetch (the run_epoch pipeline): the host
         gather + H2D of batch k+1 overlaps the device step of batch k —
-        the TPU form of the reference cache's non_blocking H2D
+        the JAX form of the reference cache's non_blocking H2D
         (storage.py:151-198)."""
         from concurrent.futures import ThreadPoolExecutor
 

@@ -1,8 +1,8 @@
-"""dgll_tpu — a TPU-native graph neural network framework.
+"""dgll_tpu — a graph neural network framework on JAX.
 
-Built from scratch on JAX/XLA/Pallas with the capability surface of dke-lab/dgll
-(see SURVEY.md): device-resident static-shape graphs, sparse message-passing ops with
-Pallas kernels, the GCN/GAT/GraphSAGE/GIN model family, neighbor + layer-wise importance
+Built from scratch on JAX/XLA with the capability surface of dke-lab/dgll
+(see SURVEY.md): device-resident static-shape graphs, sparse message-passing ops on
+XLA gather/scatter, the GCN/GAT/GraphSAGE/GIN model family, neighbor + layer-wise importance
 samplers with a prefetch-overlapped minibatch pipeline, an HBM hot-node feature cache,
 random-walk graph embeddings, and mesh-sharded multi-chip training.
 """

@@ -2,7 +2,7 @@
 
 One import site mapping every public name a dke-lab/dgll user knows onto this
 framework's native equivalents, so switching is a search-and-replace of the package
-name. Names and call shapes follow the reference; semantics are the TPU-native ones
+name. Names and call shapes follow the reference; semantics are this framework's
 (static shapes, host/device split) documented on each target.
 
     from dgll_tpu import compat as dgll

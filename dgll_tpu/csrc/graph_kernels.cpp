@@ -2,12 +2,14 @@
 //
 // Role parity with the reference's native layer (the CUDA fused kernel +
 // pybind11 bridge, /root/reference/dgll/FusedKernel/): here the *device* hot path
-// is Pallas (ops/pallas/), and this library covers the *host* hot loops that feed
-// the TPU — CSR construction, fanout neighbour sampling (the minibatch producer),
-// and random-walk generation — multithreaded C++ exported with a C ABI and loaded
-// via ctypes (no pybind11 in this environment).
+// is XLA, and this library covers the *host* hot loops that feed the device —
+// CSR construction, fanout neighbour sampling (the minibatch producer), and
+// random-walk generation — multithreaded C++ exported with a C ABI and loaded
+// via ctypes (no pybind11 dependency).
 //
-// Build: g++ -O3 -march=native -shared -fPIC -pthread -o libdgll_host.so graph_kernels.cpp
+// Build (native.py does this on first use; no -march=native, so a library
+// built on one host loads on another):
+//   g++ -O3 -shared -fPIC -pthread -o libdgll_host.so graph_kernels.cpp
 
 #include <cstdint>
 #include <cstring>
@@ -407,7 +409,7 @@ void dgll_sort_rows(const int64_t* indptr, int64_t n, int64_t* vals) {
 // The per-batch host path used to be L sample calls + numpy concat/astype
 // passes per layer (the cost the reference pays per batch too,
 // base_sampler.py:30-58 + dgllsampler.py:14-19); at products scale that keeps
-// a 2-core host from feeding the TPU. Here the frontier is ONE growing int32
+// a 2-core host from feeding the device. Here the frontier is ONE growing int32
 // buffer: frontier_k = ids[0:n_k], layer k's samples land at
 // ids[n_k : n_k*(1+f_k)], so every Block is a zero-copy view.
 //

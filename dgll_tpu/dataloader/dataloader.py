@@ -1,12 +1,12 @@
 """Minibatch dataloader with host-side sampling overlapped against device compute.
 
-Replaces two reference components with one TPU-native design:
+Replaces two reference components with one design:
 
 * the native ``DataLoader`` (``/root/reference/dgll/dataloader/dataloader.py:4-24`` —
   note its ``__iter__`` iterates an attribute that is never set; we keep the intended
   semantics from ``graphage.py:37-51``), and
 * the MQ-GNN producer/consumer CUDA-stream pipeline
-  (``GPU Accelerator/buffer_queues.py:22-119``): on TPU, JAX dispatch is already
+  (``GPU Accelerator/buffer_queues.py:22-119``): JAX dispatch is already
   asynchronous, so a producer thread that samples the *next* batches and ``device_put``s
   them while the jitted step runs gives the same sample/compute overlap without CUDA
   streams — the queue depth here plays the role of MQ-GNN's bounded ``gpu_queue``.

@@ -1,10 +1,10 @@
 """Skip-gram embedding training (jitted, negative sampling).
 
 Parity with the reference's manual skip-gram (``deepWalk.py:41-52``,
-``skipgram.py:3-26`` — full-softmax with hand-rolled SGD); re-designed TPU-first:
-window pairs are generated host-side from the walk matrix, the device step is one
-jitted SGNS (skip-gram negative sampling) update over a [B] pair batch — all dense
-MXU-friendly batched lookups, no [N]-wide softmax.
+``skipgram.py:3-26`` — full-softmax with hand-rolled SGD); re-designed for the
+device: window pairs are generated host-side from the walk matrix, the device step
+is one jitted SGNS (skip-gram negative sampling) update over a [B] pair batch — all
+dense batched lookups, no [N]-wide softmax.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Device-resident graph container.
 
-TPU-first re-design of the reference's ``DGraph`` (``/root/reference/dgll/data/dgraph.py:18-132``):
+Re-design of the reference's ``DGraph`` (``/root/reference/dgll/data/dgraph.py:18-132``):
 instead of a Python dict-of-adjacency-lists, a :class:`Graph` is a pytree of fixed-shape
 ``jax.Array``s (COO + dst-major CSR) so that every training step is a single jitted function
 and the graph can be sharded over a ``jax.sharding.Mesh``.
@@ -22,7 +22,8 @@ from typing import Any, Optional, Sequence
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from dgll_tpu.utils import struct
 
 
 @struct.dataclass
@@ -45,18 +46,6 @@ class Graph:
     train_mask: Optional[jax.Array] = None    # [n_node] bool
     val_mask: Optional[jax.Array] = None      # [n_node] bool
     test_mask: Optional[jax.Array] = None     # [n_node] bool
-
-    # Optional compiled-kernel layouts (ops/chunked.py); built by ``with_chunked``.
-    chunked: Optional[Any] = None     # ChunkedCSR of A (dst-major)
-    chunked_t: Optional[Any] = None   # ChunkedCSR of A^T (drives backward)
-    # Optional window-fused layouts (ops/windowed.py); built by ``with_windowed``.
-    hybrid: Optional[Any] = None      # HybridCSR of A (windowed + residual)
-    hybrid_t: Optional[Any] = None    # HybridCSR of A^T
-    # Set when the graph was relabeled for kernel locality (parallel/reorder.py):
-    # node_perm[new_id] == original id. Features/labels/masks are permuted
-    # consistently, so training/metrics need no mapping; per-node outputs in
-    # original id space are out[argsort(node_perm)].
-    node_perm: Optional[Any] = None   # [n_real_node] int64
 
     # Static metadata (not traced).
     n_node: int = struct.field(pytree_node=False, default=0)
@@ -121,7 +110,7 @@ class Graph:
         # Leaves stay HOST numpy: graph construction/normalisation/sampling are
         # host-side; one explicit .to_device() moves everything over in a single
         # batch when training starts (device round-trips during prep are pure
-        # overhead — and expensive over remote-attached TPU links).
+        # overhead).
         return Graph(
             indptr=indptr.astype(np.int32),
             src=src.astype(np.int32),
@@ -138,71 +127,6 @@ class Graph:
             n_real_edge=int(n_edge),
         )
 
-    def with_chunked(self, eb: int = 512) -> "Graph":
-        """Attach the chunked Pallas SpMM layouts (A and A^T) built from the real
-        edges + current edge weights. Layers then route weighted-sum aggregation
-        through the compiled kernel (``ops/pallas/segment_matmul.py``)."""
-        from dgll_tpu.ops.chunked import build_chunked_pair
-
-        src = np.asarray(self.src)[: self.n_real_edge]
-        dst = np.asarray(self.dst)[: self.n_real_edge]
-        w = (
-            None
-            if self.edge_weight is None
-            else np.asarray(self.edge_weight)[: self.n_real_edge]
-        )
-        c, ct = build_chunked_pair(src, dst, self.n_real_node, self.n_real_node, w, eb)
-        return self.replace(chunked=c, chunked_t=ct)
-
-    def with_windowed(self, eb: int = 512, min_fill: float = 0.25,
-                      min_fraction: float = 0.5, reorder: bool = False) -> "Graph":
-        """Attach the round-4 window-fused SpMM layouts (``ops/windowed.py``):
-        the gather-free kernel for locality-bearing (clustered / COG-reordered)
-        graphs. If fewer than ``min_fraction`` of the edges land on the windowed
-        path, the layouts are NOT attached (the classic gather kernel is the
-        better program there — measured in spmm_tpu_r4.json) and the graph is
-        returned unchanged; callers can check ``g.hybrid is not None``.
-
-        ``reorder=True`` manufactures locality first when the graph lacks it in
-        id space: a cheap capture estimate gates a community/RCM/degree
-        relabeling pass (``parallel/reorder.py``; the reference's COG
-        preprocessing thesis, ``cog.py:31-45``). The returned graph is then the
-        PERMUTED graph (features/labels/masks permuted consistently;
-        ``node_perm`` maps back) — training on it is exact.
-
-        NOTE: this does NOT attach the classic chunked layouts — chain
-        ``.with_chunked()`` for the GAT/non-hybrid fallback paths (run.py does)."""
-        from dgll_tpu.ops.windowed import build_hybrid_pair
-
-        g = self
-        if reorder:
-            from dgll_tpu.parallel.reorder import (
-                estimate_windowed_fraction,
-                reorder_for_locality,
-            )
-
-            src0 = np.asarray(g.src)[: g.n_real_edge]
-            dst0 = np.asarray(g.dst)[: g.n_real_edge]
-            if estimate_windowed_fraction(src0, dst0, min_fill) < min_fraction:
-                g, rinfo = reorder_for_locality(g, min_fill=min_fill,
-                                                min_fraction=min_fraction)
-                if rinfo.get("declined"):
-                    return self  # no ordering manufactures enough locality:
-                                 # skip the (wasted) layout build entirely
-
-        src = np.asarray(g.src)[: g.n_real_edge]
-        dst = np.asarray(g.dst)[: g.n_real_edge]
-        w = (
-            None
-            if g.edge_weight is None
-            else np.asarray(g.edge_weight)[: g.n_real_edge]
-        )
-        h, ht = build_hybrid_pair(src, dst, g.n_real_node, g.n_real_node,
-                                  w, eb, min_fill)
-        if min(h.windowed_fraction, ht.windowed_fraction) < min_fraction:
-            return self  # decline: keep the caller's graph (and id space) as-is
-        return g.replace(hybrid=h, hybrid_t=ht)
-
     def to_device(self, device=None) -> "Graph":
         """Move all array leaves to device (one batched transfer)."""
         def put(x):
@@ -210,27 +134,7 @@ class Graph:
                 return None
             return jax.device_put(x, device) if device is not None else jnp.asarray(x)
 
-        moved = jax.tree.map(put, self)
-        moved = jax.block_until_ready(moved)
-        if moved.chunked is not None or moved.hybrid is not None:
-            # refresh the layouts' interpret flag for the new placement
-            from dgll_tpu.ops.chunked import _target_platform
-
-            interp = _target_platform(device) != "tpu"
-            if moved.chunked is not None:
-                moved = moved.replace(
-                    chunked=moved.chunked.replace(interpret=interp),
-                    chunked_t=moved.chunked_t.replace(interpret=interp),
-                )
-            if moved.hybrid is not None:
-                def _set(hy):
-                    return hy.replace(
-                        win=hy.win.replace(interpret=interp),
-                        res=None if hy.res is None
-                        else hy.res.replace(interpret=interp))
-                moved = moved.replace(hybrid=_set(moved.hybrid),
-                                      hybrid_t=_set(moved.hybrid_t))
-        return moved
+        return jax.block_until_ready(jax.tree.map(put, self))
 
     # ------------------------------------------------------- DGraph-parity API
     # (reference dgll/data/dgraph.py:49-132; host-side conveniences, not jitted)

@@ -24,14 +24,17 @@ _tried = False
 
 
 def _compile() -> bool:
-    cmd = [
-        "g++", "-O3", "-march=native", "-shared", "-fPIC", "-pthread",
-        "-o", _SO, _SRC,
-    ]
+    # build under a per-process name, then rename into place: processes that
+    # start together (test workers) never load a half-written library
+    tmp = f"{_SO}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-shared", "-fPIC", "-pthread", "-o", tmp, _SRC]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _SO)
         return True
     except Exception:
+        if os.path.exists(tmp):
+            os.remove(tmp)
         return False
 
 

@@ -1,4 +1,4 @@
-"""Graph convolution layers (flax) — TPU-native forms of the reference layer zoo.
+"""Graph convolution layers — the reference layer zoo over sparse message passing.
 
 Parity targets (``/root/reference/dgll/nn/Convolution/``):
 
@@ -20,8 +20,8 @@ from typing import Callable, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
 
+from dgll_tpu.nn.module import Dense, Dropout, Module
 from dgll_tpu.ops.segment import segment_softmax
 from dgll_tpu.ops.spmm import block_aggregate, spmm_coo, spmm_max_coo, spmm_mean_coo
 
@@ -57,31 +57,17 @@ def _is_weighted_block(g) -> bool:
 
 
 def _weighted_aggregate(g, h: jax.Array, n_dst: int) -> jax.Array:
-    """Weighted-sum aggregation, routed to the Pallas chunked kernel when the graph
-    carries a chunked layout (``Graph.with_chunked``) and the width is MXU-tileable;
-    falls back to the XLA segment path otherwise."""
+    """Weighted-sum aggregation: dense gather+einsum for fixed-K weighted blocks,
+    a reshape-reduce for fanout-dense blocks, the COO segment path otherwise."""
     if _is_weighted_block(g):
         rows = jnp.take(h, g.slot.reshape(-1), axis=0).reshape(n_dst, g.k, -1)
         return jnp.einsum("nk,nkf->nf", g.weight.astype(h.dtype), rows)
-    hy = getattr(g, "hybrid", None)
-    if hy is not None and h.shape[-1] % 128 == 0 and hy.win.n_rows >= n_dst:
-        # round-4 window-fused kernel: gather-free for clustered graphs
-        from dgll_tpu.ops.pallas.spmm_windowed import spmm_hybrid
-
-        return spmm_hybrid(hy, g.hybrid_t, h)[:n_dst]
-    c = getattr(g, "chunked", None)
-    if c is not None and h.shape[-1] % 128 == 0 and c.n_rows >= n_dst:
-        from dgll_tpu.ops.pallas.segment_matmul import spmm_chunked
-
-        # interpret-vs-compiled comes from the layout's own placement (static field
-        # set at build/to_device time), never from the process-global backend
-        return spmm_chunked(c, g.chunked_t, h, None, None, c.interpret)[:n_dst]
     if _is_dense_block(g):
         return block_aggregate(h, n_dst, g.fanout, g.neigh_mask, "sum")
     return spmm_coo(g.src, g.dst, h, n_dst, _edge_weight(g))
 
 
-class GCNConv(nn.Module):
+class GCNConv(Module):
     """``out = A_hat @ (X W) + b`` — transform-then-aggregate (W first keeps the SpMM
     operand at the smaller hidden width, same trick as the reference CUDA kernel)."""
 
@@ -89,24 +75,22 @@ class GCNConv(nn.Module):
     use_bias: bool = True
     dtype: Optional[jnp.dtype] = None
 
-    @nn.compact
     def __call__(self, g, x: jax.Array) -> jax.Array:
-        h = nn.Dense(self.features, use_bias=False, dtype=self.dtype, name="weight")(x)
+        h = Dense(self.features, use_bias=False, dtype=self.dtype, name="weight")(x)
         out = _weighted_aggregate(g, h, _n_dst(g))
         if self.use_bias:
-            bias = self.param("bias", nn.initializers.zeros, (self.features,), jnp.float32)
+            bias = self.param("bias", jax.nn.initializers.zeros, (self.features,), jnp.float32)
             out = out + bias.astype(out.dtype)
         return out
 
 
-class GATConv(nn.Module):
+class GATConv(Module):
     """Multi-head graph attention.
 
     Scores: ``e_k = LeakyReLU(a_dst . h[dst_k] + a_src . h[src_k])`` (the additive form
     the reference builds densely at ``gatconv.py:45-54``), normalised per destination by
     ``segment_softmax`` (sparse twin of the masked dense softmax at ``gatconv.py:36-39``),
-    then a per-head weighted SpMM. Heads are a leading vmapped axis, so the projection is
-    a single MXU matmul of width heads*features.
+    then a per-head weighted SpMM. The projection is one matmul of width heads*features.
     """
 
     features: int
@@ -116,59 +100,15 @@ class GATConv(nn.Module):
     attn_dropout: float = 0.0
     dtype: Optional[jnp.dtype] = None
 
-    @nn.compact
     def __call__(self, g, x: jax.Array, deterministic: bool = True) -> jax.Array:
         H, F = self.num_heads, self.features
         n_dst = _n_dst(g)
         _require_self_at_head(g, "GATConv")
-        h = nn.Dense(H * F, use_bias=False, dtype=self.dtype, name="weight")(x)
+        h = Dense(H * F, use_bias=False, dtype=self.dtype, name="weight")(x)
         h = h.reshape(x.shape[0], H, F)
 
-        a_src = self.param("attn_src", nn.initializers.glorot_uniform(), (H, F), jnp.float32)
-        a_dst = self.param("attn_dst", nn.initializers.glorot_uniform(), (H, F), jnp.float32)
-
-        # compiled sparse path: full graph carrying a chunked layout. The kernel
-        # width is the TOTAL H*F (one premultiplied-message launch covers all
-        # heads); per-head features are zero-padded up to the smallest F' with
-        # (H*F') % 128 == 0, so every config — including the reference's
-        # canonical 8-head x 8-dim (gatconv.py:174-199) — reaches the MXU
-        # kernels. Zero feature columns change no score or output (sliced off).
-        c = getattr(g, "chunked", None)
-        if c is not None and c.n_rows >= n_dst:
-            import math
-
-            from dgll_tpu.ops.pallas.gat import gat_attention_chunked_fused
-
-            # attention dropout rides the kernel path as an alpha mask
-            # (reference drops attention coefficients, gatconv.py:40,140)
-            drop_mask = None
-            if self.attn_dropout > 0.0 and not deterministic:
-                keep = jax.random.bernoulli(
-                    self.make_rng("dropout"), 1.0 - self.attn_dropout,
-                    (c.n_chunk_meta * c.eb, H))
-                drop_mask = keep.astype(jnp.float32) / (1.0 - self.attn_dropout)
-
-            lane_per_head = 128 // math.gcd(H, 128)
-            f_pad = -(-F // lane_per_head) * lane_per_head
-            interpret = c.interpret
-            hp = h
-            a_s, a_d = a_src, a_dst
-            if f_pad != F:
-                hp = jnp.pad(h, ((0, 0), (0, 0), (0, f_pad - F)))
-                a_s = jnp.pad(a_src, ((0, 0), (0, f_pad - F)))
-                a_d = jnp.pad(a_dst, ((0, 0), (0, f_pad - F)))
-            hp = hp.reshape(x.shape[0], H * f_pad)
-            if hp.shape[0] < c.n_rows:
-                hp = jnp.pad(hp, ((0, c.n_rows - hp.shape[0]), (0, 0)))
-            # round-5 fused path: 3 launches fwd / 4 bwd for ANY head count
-            # (was 6 fwd via broadcast + 4-launch softmax + scatter)
-            out = gat_attention_chunked_fused(
-                c, g.chunked_t, hp, a_s.astype(hp.dtype), a_d.astype(hp.dtype),
-                self.negative_slope, interpret, drop_mask=drop_mask,
-            )[:n_dst, :, :F]
-            if self.concat_heads:
-                return out.reshape(n_dst, H * F)
-            return out.mean(axis=1)
+        a_src = self.param("attn_src", jax.nn.initializers.glorot_uniform(), (H, F), jnp.float32)
+        a_dst = self.param("attn_dst", jax.nn.initializers.glorot_uniform(), (H, F), jnp.float32)
 
         # per-node score halves, then gather to edges (cheaper than per-edge dots)
         s_src = jnp.einsum("nhf,hf->nh", h, a_src.astype(h.dtype))
@@ -181,42 +121,34 @@ class GATConv(nn.Module):
             neigh_h = neigh_h.reshape(n_dst, fo, H, F)
             s_n = jax.lax.dynamic_slice_in_dim(s_src, n_dst, n_dst * fo, axis=0)
             s_n = s_n.reshape(n_dst, fo, H)
-            e = nn.leaky_relu(s_dst[:n_dst, None, :] + s_n, self.negative_slope)
+            e = jax.nn.leaky_relu(s_dst[:n_dst, None, :] + s_n, self.negative_slope)
             m = g.neigh_mask[..., None]
             e = jnp.where(m, e, -1e9)
             ex = jnp.exp(e - jax.lax.stop_gradient(e.max(axis=1, keepdims=True))) * m
             alpha = ex / jnp.maximum(ex.sum(axis=1, keepdims=True), 1e-9)
             if self.attn_dropout > 0.0 and not deterministic:
-                alpha = nn.Dropout(rate=self.attn_dropout, deterministic=False)(alpha)
+                alpha = Dropout(rate=self.attn_dropout, deterministic=False)(alpha)
             out = jnp.einsum("nfh,nfhd->nhd", alpha.astype(neigh_h.dtype), neigh_h)
         else:
             e = jnp.take(s_dst[:n_dst], g.dst, axis=0) + jnp.take(s_src, g.src, axis=0)
-            e = nn.leaky_relu(e, self.negative_slope)
+            e = jax.nn.leaky_relu(e, self.negative_slope)
 
             alpha = segment_softmax(e, g.dst, n_dst)  # [E, H]
             if self.attn_dropout > 0.0 and not deterministic:
-                alpha = nn.Dropout(rate=self.attn_dropout, deterministic=False)(alpha)
+                alpha = Dropout(rate=self.attn_dropout, deterministic=False)(alpha)
 
-            # aggregate at [E, H*F] and broadcast alpha via the head-expand
-            # matmul: ANY rank-3 [E, H, F] intermediate tile-pads its minor
-            # dims to (8, 128) on TPU — up to 8-16x HBM inflation at edge
-            # scale (measured OOM at 3.3M edges); rank-2 keeps the layout
-            # dense. Messages multiply and accumulate in f32 regardless of
-            # the compute dtype — a bf16 segment_sum over a hub's 10k+ edges
-            # loses ~log2(deg) mantissa bits.
-            from dgll_tpu.ops.pallas.gat_fused import head_expand
-
-            h2 = h.reshape(x.shape[0], H * F)
-            msg = jnp.take(h2, g.src, axis=0).astype(jnp.float32) * (
-                alpha @ head_expand(H, F, jnp.float32))
+            # messages multiply and accumulate in f32 whatever the compute
+            # dtype: a bf16 segment_sum over a hub's 10k+ edges loses
+            # ~log2(deg) mantissa bits
+            msg = jnp.take(h, g.src, axis=0).astype(jnp.float32) * alpha[..., None]
             out = jax.ops.segment_sum(msg, g.dst, num_segments=n_dst)
-            out = out.reshape(n_dst, H, F)
+            out = out.astype(h.dtype)
         if self.concat_heads:
             return out.reshape(n_dst, H * F)
         return out.mean(axis=1)
 
 
-class SAGEConv(nn.Module):
+class SAGEConv(Module):
     """GraphSAGE: aggregate neighbours (mean/sum/max) then combine with the self vector.
 
     ``combine='concat'`` matches the reference default (``sageConv.forward:70-83``);
@@ -229,7 +161,6 @@ class SAGEConv(nn.Module):
     use_bias: bool = True
     dtype: Optional[jnp.dtype] = None
 
-    @nn.compact
     def __call__(self, g, x: jax.Array) -> jax.Array:
         n_dst = _n_dst(g)
         _require_self_at_head(g, "SAGEConv")
@@ -244,8 +175,8 @@ class SAGEConv(nn.Module):
         else:
             agg = spmm_max_coo(g.src, g.dst, x, n_dst)
 
-        h_neigh = nn.Dense(self.features, use_bias=False, dtype=self.dtype, name="neigh")(agg)
-        h_self = nn.Dense(
+        h_neigh = Dense(self.features, use_bias=False, dtype=self.dtype, name="neigh")(agg)
+        h_self = Dense(
             self.features, use_bias=self.use_bias, dtype=self.dtype, name="self"
         )(x[:n_dst])
         if self.combine == "concat":
@@ -253,24 +184,23 @@ class SAGEConv(nn.Module):
         return h_self + h_neigh
 
 
-class GINConv(nn.Module):
+class GINConv(Module):
     """GIN: ``act(MLP((1 + eps) x + A x))`` (ref ``ginconv.py:16-30`` uses eps=0, ReLU)."""
 
     features: int
     learn_eps: bool = False
-    activation: Callable = nn.relu
+    activation: Callable = jax.nn.relu
     dtype: Optional[jnp.dtype] = None
 
-    @nn.compact
     def __call__(self, g, x: jax.Array) -> jax.Array:
         n_dst = _n_dst(g)
         _require_self_at_head(g, "GINConv")
         agg = _weighted_aggregate(g, x, n_dst)
         eps = (
-            self.param("eps", nn.initializers.zeros, (), jnp.float32)
+            self.param("eps", jax.nn.initializers.zeros, (), jnp.float32)
             if self.learn_eps
             else 0.0
         )
         h = (1.0 + eps) * x[:n_dst] + agg
-        h = nn.Dense(self.features, dtype=self.dtype, name="mlp")(h)
+        h = Dense(self.features, dtype=self.dtype, name="mlp")(h)
         return self.activation(h)

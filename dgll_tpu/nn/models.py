@@ -18,9 +18,9 @@ from typing import Optional, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
 
 from dgll_tpu.nn.conv import GATConv, GCNConv, GINConv, SAGEConv
+from dgll_tpu.nn.module import Dense, Dropout, Module
 from dgll_tpu.nn.pooling import Pooling
 
 
@@ -32,24 +32,23 @@ def _layer_inputs(g, n_layers):
     return [g] * n_layers
 
 
-class GCN(nn.Module):
+class GCN(Module):
     hidden: int
     n_class: int
     n_layers: int = 2
     dropout: float = 0.5
     dtype: Optional[jnp.dtype] = None
 
-    @nn.compact
     def __call__(self, g, x, deterministic: bool = True) -> jax.Array:
         gs = _layer_inputs(g, self.n_layers)
         for i in range(self.n_layers - 1):
-            x = nn.relu(GCNConv(self.hidden, dtype=self.dtype)(gs[i], x))
-            x = nn.Dropout(self.dropout, deterministic=deterministic)(x)
+            x = jax.nn.relu(GCNConv(self.hidden, dtype=self.dtype)(gs[i], x))
+            x = Dropout(self.dropout, deterministic=deterministic)(x)
         x = GCNConv(self.n_class, dtype=self.dtype)(gs[-1], x)
-        return nn.log_softmax(x)
+        return jax.nn.log_softmax(x)
 
 
-class GAT(nn.Module):
+class GAT(Module):
     hidden: int
     n_class: int
     num_heads: int = 8
@@ -58,11 +57,10 @@ class GAT(nn.Module):
     negative_slope: float = 0.2
     dtype: Optional[jnp.dtype] = None
 
-    @nn.compact
     def __call__(self, g, x, deterministic: bool = True) -> jax.Array:
         gs = _layer_inputs(g, self.n_layers)
         for i in range(self.n_layers - 1):
-            x = nn.Dropout(self.dropout, deterministic=deterministic)(x)
+            x = Dropout(self.dropout, deterministic=deterministic)(x)
             x = GATConv(
                 self.hidden,
                 num_heads=self.num_heads,
@@ -71,8 +69,8 @@ class GAT(nn.Module):
                 attn_dropout=self.dropout,
                 dtype=self.dtype,
             )(gs[i], x, deterministic)
-            x = nn.elu(x)
-        x = nn.Dropout(self.dropout, deterministic=deterministic)(x)
+            x = jax.nn.elu(x)
+        x = Dropout(self.dropout, deterministic=deterministic)(x)
         x = GATConv(
             self.n_class,
             num_heads=1,
@@ -80,10 +78,10 @@ class GAT(nn.Module):
             negative_slope=self.negative_slope,
             dtype=self.dtype,
         )(gs[-1], x, deterministic)
-        return nn.log_softmax(x)
+        return jax.nn.log_softmax(x)
 
 
-class GraphSAGE(nn.Module):
+class GraphSAGE(Module):
     hidden: int
     n_class: int
     n_layers: int = 2
@@ -92,7 +90,6 @@ class GraphSAGE(nn.Module):
     dropout: float = 0.5
     dtype: Optional[jnp.dtype] = None
 
-    @nn.compact
     def __call__(self, g, x, deterministic: bool = True) -> jax.Array:
         gs = _layer_inputs(g, self.n_layers)
         for i in range(self.n_layers):
@@ -102,14 +99,14 @@ class GraphSAGE(nn.Module):
                 feats, aggregator=self.aggregator, combine=self.combine, dtype=self.dtype
             )(gs[i], x)
             if not last:
-                x = nn.relu(x)
-                x = nn.Dropout(self.dropout, deterministic=deterministic)(x)
+                x = jax.nn.relu(x)
+                x = Dropout(self.dropout, deterministic=deterministic)(x)
         if self.combine == "concat":  # concat doubles width; project final to n_class
-            x = nn.Dense(self.n_class, dtype=self.dtype, name="out_proj")(x)
-        return nn.log_softmax(x)
+            x = Dense(self.n_class, dtype=self.dtype, name="out_proj")(x)
+        return jax.nn.log_softmax(x)
 
 
-class GINNode(nn.Module):
+class GINNode(Module):
     """Node classification with stacked GINConv — the ``--Model GIN`` CLI path.
 
     (The reference uses GIN for graph classification only — that readout is the
@@ -122,20 +119,19 @@ class GINNode(nn.Module):
     dropout: float = 0.5
     dtype: Optional[jnp.dtype] = None
 
-    @nn.compact
     def __call__(self, g, x, deterministic: bool = True) -> jax.Array:
         gs = _layer_inputs(g, self.n_layers)
         for i in range(self.n_layers - 1):
             x = GINConv(self.hidden, learn_eps=self.learn_eps, dtype=self.dtype)(gs[i], x)
-            x = nn.Dropout(self.dropout, deterministic=deterministic)(x)
+            x = Dropout(self.dropout, deterministic=deterministic)(x)
         x = GINConv(
             self.n_class, learn_eps=self.learn_eps, activation=lambda h: h,
             dtype=self.dtype,
         )(gs[-1], x)
-        return nn.log_softmax(x)
+        return jax.nn.log_softmax(x)
 
 
-class GIN(nn.Module):
+class GIN(Module):
     """Graph classification: stacked GINConv; readout concatenates every layer's pooled
     representation (including raw input), matching ``GIN.forward`` (``ginconv.py:53-65``)."""
 
@@ -147,7 +143,6 @@ class GIN(nn.Module):
     dropout: float = 0.5
     dtype: Optional[jnp.dtype] = None
 
-    @nn.compact
     def __call__(
         self, g, x, graph_id, n_graph: int, deterministic: bool = True
     ) -> jax.Array:
@@ -157,5 +152,5 @@ class GIN(nn.Module):
             x = GINConv(self.hidden, learn_eps=self.learn_eps, dtype=self.dtype)(g, x)
             readouts.append(pool(x, graph_id, n_graph))
         h = jnp.concatenate(readouts, axis=-1)
-        h = nn.Dropout(self.dropout, deterministic=deterministic)(h)
-        return nn.log_softmax(nn.Dense(self.n_class, dtype=self.dtype)(h))
+        h = Dropout(self.dropout, deterministic=deterministic)(h)
+        return jax.nn.log_softmax(Dense(self.n_class, dtype=self.dtype)(h))

@@ -1,6 +1,6 @@
 """Global graph pooling + graph batching.
 
-TPU-native replacement for the reference's ``torch_scatter``-based pooling
+Replacement for the reference's ``torch_scatter``-based pooling
 (``/root/reference/dgll/nn/GlobalPooling/Pooling.py:18-115``): segment reductions over a
 ``graph_id`` vector, plus a ``batch_graphs`` helper that concatenates many small graphs
 into one padded mega-graph (the standard JAX approach to variable-size graph batches).
@@ -12,9 +12,9 @@ from typing import List, Sequence, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
 
 from dgll_tpu.graph import Graph
+from dgll_tpu.nn.module import Module
 from dgll_tpu.ops.segment import segment_max, segment_mean, segment_sum
 
 
@@ -36,7 +36,7 @@ def max_pooling(x: jax.Array, graph_id: jax.Array, n_graph: int) -> jax.Array:
 _POOLERS = {"sum": sum_pooling, "mean": mean_pooling, "max": max_pooling}
 
 
-class Pooling(nn.Module):
+class Pooling(Module):
     """Multiplex/concatenate global poolers (ref ``Pooling.forward:102-115``).
 
     ``kinds`` may name one pooler or several; several are concatenated feature-wise.
@@ -44,7 +44,6 @@ class Pooling(nn.Module):
 
     kinds: Tuple[str, ...] = ("sum",)
 
-    @nn.compact
     def __call__(self, x: jax.Array, graph_id: jax.Array, n_graph: int) -> jax.Array:
         outs = [_POOLERS[k](x, graph_id, n_graph) for k in self.kinds]
         return outs[0] if len(outs) == 1 else jnp.concatenate(outs, axis=-1)

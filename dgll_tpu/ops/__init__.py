@@ -25,19 +25,3 @@ __all__ = [
     "sddmm_coo",
     "fused_gcn_layer",
 ]
-from dgll_tpu.ops.windowed import (
-    HybridCSR,
-    WindowedCSR,
-    build_hybrid,
-    build_hybrid_pair,
-    build_windowed,
-    hybrid_to_device,
-    spmm_windowed_xla,
-)
-from dgll_tpu.ops.pallas.gat import gat_attention_chunked_fused
-from dgll_tpu.ops.pallas.gat_fused import (
-    gat_alpha,
-    gat_attention_fused,
-    gat_stats,
-)
-from dgll_tpu.ops.pallas.spmm_windowed import spmm_hybrid, spmm_windowed_pallas

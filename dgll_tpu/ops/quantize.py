@@ -1,22 +1,19 @@
 """Feature quantization / binarization.
 
 The reference architecture's "Quantization/Binarization" block (README / drawio —
-SURVEY.md §0 lists it in the capability surface). TPU-native design: features are
-stored int8 (or sign-binarized) with per-column scales; dequantisation fuses into the
-post-gather compute under jit. Quadruples HBM feature-cache capacity and halves
-gather traffic on byte-bound paths.
-
-Includes a Pallas stochastic-rounding quantizer (VPU PRNG) with an XLA fallback for
-CPU/interpret paths.
+SURVEY.md §0 lists it in the capability surface). Features are stored int8 (or
+sign-binarized) with per-column scales; dequantisation fuses into the post-gather
+compute under jit. Quadruples the device feature-cache capacity and quarters gather
+traffic on byte-bound paths. Stochastic rounding draws its noise with ``jax.random``.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
-from flax import struct
+
+from dgll_tpu.utils import struct
 
 
 @struct.dataclass
@@ -61,66 +58,3 @@ def quantization_error(x, qf: QuantizedFeatures) -> float:
     x = jnp.asarray(x, jnp.float32)
     err = jnp.abs(qf.dequantize() - x)
     return float(jnp.mean(err) / jnp.maximum(jnp.mean(jnp.abs(x)), 1e-12))
-
-
-# ---------------------------------------------------------------- pallas kernel
-def quantize_int8_pallas(x: jax.Array, seed: int = 0, interpret: bool = False
-                         ) -> QuantizedFeatures:
-    """Stochastic-rounding int8 quantizer as a Pallas TPU kernel.
-
-    Row-blocked; per-column scales are computed with XLA (one pass), the
-    round+clip+pack runs on the VPU with the on-core PRNG.
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    x = jnp.asarray(x, jnp.float32)
-    n, d = x.shape
-    scale = jnp.maximum(jnp.max(jnp.abs(x), axis=0), 1e-12) / 127.0
-
-    blk = 256
-    n_pad = ((n + blk - 1) // blk) * blk
-    if n_pad != n:
-        x = jnp.pad(x, ((0, n_pad - n), (0, 0)))
-
-    # the on-core PRNG has no CPU/interpret lowering; feed precomputed noise there
-    use_device_prng = not interpret
-
-    def kernel(seed_ref, x_ref, inv_scale_ref, *rest):
-        if use_device_prng:
-            (q_ref,) = rest
-            pltpu.prng_seed(seed_ref[0] + pl.program_id(0))
-            bits = pltpu.prng_random_bits(x_ref.shape)
-            # uniform in [-0.5, 0.5) from the top 24 bits
-            u = (bits >> 8).astype(jnp.float32) * (1.0 / (1 << 24)) - 0.5
-        else:
-            u_ref, q_ref = rest
-            u = u_ref[:]
-        y = x_ref[:] * inv_scale_ref[0][None, :]
-        q = jnp.clip(jnp.floor(y + 0.5 + u), -127, 127)
-        q_ref[:] = q.astype(jnp.int8)
-
-    in_specs = [
-        pl.BlockSpec((blk, d), lambda i, s: (i, 0)),
-        pl.BlockSpec((1, d), lambda i, s: (0, 0)),
-    ]
-    args = [jnp.asarray([seed], jnp.int32), x, (1.0 / scale).reshape(1, d)]
-    if not use_device_prng:
-        in_specs.append(pl.BlockSpec((blk, d), lambda i, s: (i, 0)))
-        args.append(
-            jax.random.uniform(jax.random.key(seed), (n_pad, d), minval=-0.5,
-                               maxval=0.5)
-        )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(n_pad // blk,),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((blk, d), lambda i, s: (i, 0)),
-    )
-    q = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n_pad, d), jnp.int8),
-        interpret=interpret,
-    )(*args)
-    return QuantizedFeatures(values=q[:n], scale=scale, n=int(n), d=int(d))

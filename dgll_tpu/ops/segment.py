@@ -1,9 +1,9 @@
-"""Segment reductions — the TPU-native replacement for ``torch_scatter``.
+"""Segment reductions — the JAX replacement for ``torch_scatter``.
 
 The reference's global pooling (``/root/reference/dgll/nn/GlobalPooling/Pooling.py:18-115``)
-and sparse-GAT normalisation lean on ``torch_scatter.scatter``; on TPU the idiomatic form
-is ``jax.ops.segment_*`` which XLA lowers to sorted-segment reductions that fuse with the
-surrounding elementwise work. All ops here take static ``num_segments`` so they jit cleanly.
+and sparse-GAT normalisation lean on ``torch_scatter.scatter``; the JAX form is
+``jax.ops.segment_*``, which XLA lowers to scatter reductions (atomic adds on a GPU)
+that fuse with the surrounding elementwise work. All ops here take static ``num_segments`` so they jit cleanly.
 """
 from __future__ import annotations
 

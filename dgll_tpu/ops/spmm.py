@@ -1,18 +1,11 @@
 """Sparse(A) x Dense(X) aggregation — the framework's hottest op.
 
-TPU-native replacement for the reference's fused CUDA GCN kernel
+Plain-XLA forms of the reference's fused CUDA GCN kernel
 (``/root/reference/dgll/FusedKernel/gcn_fused_kernel.cu:5-74`` — ``ReLU(A_csr @ (X @ W))``)
-and for ``torch.spmm`` calls in the dense layers (``dgll/nn/Convolution/gcnconv.py:33``).
-
-Two execution paths:
-
-* ``spmm_coo`` — pure-XLA gather + ``segment_sum`` over a COO edge list. Works on any
-  backend (our CPU test path), fuses with neighbouring elementwise ops, and is the
-  reference semantics all kernels are tested against.
-* chunked Pallas path — ``ops/chunked.py`` packs the adjacency into fixed [n_chunk, EB]
-  edge chunks and ``ops/pallas/segment_matmul.py`` aggregates them as one-hot MXU
-  matmuls with scalar-prefetched row-block ids; used for full-graph training where the
-  adjacency is reused across steps (``Graph.with_chunked``).
+and of the ``torch.spmm`` calls in its dense layers (``dgll/nn/Convolution/gcnconv.py:33``):
+``spmm_coo`` gathers source rows and ``segment_sum``s them into destinations; on a GPU
+XLA lowers the scatter to native atomic adds. It runs on any backend and is the
+semantics every other aggregation path is tested against.
 
 ``fused_gcn_layer`` mirrors the reference's fused forward exactly (one call = normalise ->
 aggregate -> transform -> bias -> ReLU) with a custom VJP matching
@@ -30,7 +23,7 @@ import jax.numpy as jnp
 # The COO path materialises an [E, F] message matrix; above this many bytes the
 # feature dim is processed in 128-wide tiles so full-graph aggregation at scale
 # (e.g. exact inference: 16M edges x 512 features = 33 GB untiled) stays inside
-# HBM. Static trace-time decision — small/hot paths are untouched.
+# device memory. Static trace-time decision — small/hot paths are untouched.
 _MSG_TILE_BYTES = 2 << 30
 
 
@@ -49,23 +42,28 @@ def spmm_coo(
 ) -> jax.Array:
     """out[i] = sum_{(u -> i) in E} w_e * x[u].
 
-    Differentiable through both ``x`` and ``edge_weight`` (XLA scatter-add transpose).
+    Differentiable through both ``x`` and ``edge_weight`` (XLA scatter-add
+    transpose). Messages are summed in at least float32, forward and backward,
+    and the result cast back to ``x.dtype``: a bfloat16 sum over a hub's 10k+
+    in-edges would lose ~log2(deg) mantissa bits.
     """
+    acc = jnp.promote_types(x.dtype, jnp.float32)
+
+    def aggregate(xs):
+        # convert before the gather, so its transpose (the backward's
+        # scatter-add) also sums in acc
+        msg = jnp.take(xs.astype(acc), src, axis=0)
+        if edge_weight is not None:
+            msg = msg * edge_weight[:, None].astype(acc)
+        return jax.ops.segment_sum(msg, dst, num_segments=n_dst).astype(x.dtype)
+
     f = x.shape[-1]
-    tiles = _msg_f_tiles(src, f, x.dtype.itemsize)
-    if tiles is not None:
-        outs = []
-        for lo in tiles:
-            xs = jax.lax.slice_in_dim(x, lo, min(lo + 128, f), axis=1)
-            msg = jnp.take(xs, src, axis=0)
-            if edge_weight is not None:
-                msg = msg * edge_weight[:, None].astype(msg.dtype)
-            outs.append(jax.ops.segment_sum(msg, dst, num_segments=n_dst))
-        return jnp.concatenate(outs, axis=-1)
-    msg = jnp.take(x, src, axis=0)
-    if edge_weight is not None:
-        msg = msg * edge_weight[:, None].astype(msg.dtype)
-    return jax.ops.segment_sum(msg, dst, num_segments=n_dst)
+    tiles = _msg_f_tiles(src, f, jnp.dtype(acc).itemsize)
+    if tiles is None:
+        return aggregate(x)
+    return jnp.concatenate(
+        [aggregate(jax.lax.slice_in_dim(x, lo, min(lo + 128, f), axis=1))
+         for lo in tiles], axis=-1)
 
 
 def spmm_mean_coo(src, dst, x, n_dst) -> jax.Array:
@@ -100,7 +98,7 @@ def block_aggregate(x: jax.Array, n_dst: int, fanout: int, neigh_mask: jax.Array
     A ``Block``'s source rows are laid out ``[dst | sampled.flatten()]``, so the
     sampled-neighbour slab ``x[n_dst : n_dst*(1+fanout)]`` reshapes to
     ``[n_dst, fanout, F]`` and aggregation is a masked reduce over the fanout axis —
-    the TPU-shaped form of the reference's dense ``[n, fanout, d]`` aggregation
+    the dense form of the reference's ``[n, fanout, d]`` aggregation
     (``sageconv.py:32-45``). Semantics match the COO ops on Blocks exactly:
 
     * ``mean``: plain mean over all slots (masked slots alias the destination's own

@@ -4,15 +4,11 @@ from dgll_tpu.parallel.community import (
     load_community_book,
     max_community_size,
     merge_groups,
+    permute_graph,
     relabel_communities,
     run_cog,
     save_community_book,
     split_oversized,
-)
-from dgll_tpu.parallel.reorder import (
-    estimate_windowed_fraction,
-    permute_graph,
-    reorder_for_locality,
 )
 from dgll_tpu.parallel.dp import (
     ShardedDataLoader,
@@ -22,13 +18,10 @@ from dgll_tpu.parallel.dp import (
 )
 from dgll_tpu.parallel.halo import (
     HaloPlan,
-    ShardWindowed,
     allgather_volume_bytes,
     build_halo_plan,
-    build_shard_windowed,
     halo_volume_bytes,
     make_halo_spmm,
-    make_halo_spmm_windowed,
     make_partitioned_spmm,
 )
 from dgll_tpu.parallel.gp import (
@@ -59,6 +52,7 @@ __all__ = [
     "merge_groups",
     "split_oversized",
     "relabel_communities",
+    "permute_graph",
     "max_community_size",
     "save_community_book",
     "load_community_book",

@@ -134,14 +134,40 @@ def split_oversized(part_of: np.ndarray, max_size: int, seed: int = 0) -> np.nda
     return comp
 
 
+def permute_graph(g: Graph, order: np.ndarray) -> Graph:
+    """Relabel so new node ``i`` is old node ``order[i]`` (features/labels/
+    masks/edges all permuted; edge weights preserved)."""
+    from dgll_tpu import native
+
+    n = g.n_real_node
+    order = np.asarray(order, np.int64)
+    new_id = np.empty(n, np.int64)
+    new_id[order] = np.arange(n)
+
+    src = native.remap(new_id, np.asarray(g.src)[: g.n_real_edge].astype(np.int64))
+    dst = native.remap(new_id, np.asarray(g.dst)[: g.n_real_edge].astype(np.int64))
+    ew = None if g.edge_weight is None else np.asarray(g.edge_weight)[: g.n_real_edge]
+
+    def _perm(x):
+        return None if x is None else np.asarray(x)[:n][order]
+
+    return Graph.from_edges(
+        src, dst, n,
+        edge_weight=ew,
+        node_feat=_perm(g.node_feat),
+        labels=_perm(g.labels),
+        train_mask=_perm(g.train_mask),
+        val_mask=_perm(g.val_mask),
+        test_mask=_perm(g.test_mask),
+    )
+
+
 def relabel_communities(g: Graph, part_of: np.ndarray) -> Tuple[Graph, Dict]:
     """Reorder node ids so each community is a contiguous range (``cog.py:31-45``).
 
     Returns the reordered Graph (features/labels/masks permuted, edges remapped)
     and the community book ``{cid: [start, end)}``.
     """
-    from dgll_tpu.parallel.reorder import permute_graph
-
     order = np.argsort(part_of, kind="stable")  # nodes grouped by community
 
     ids, counts = np.unique(part_of, return_counts=True)

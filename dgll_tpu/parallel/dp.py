@@ -16,12 +16,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-
-try:
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore
 
 from dgll_tpu.sampling.base import Block, HostGraph
 from dgll_tpu.train.metrics import masked_nll_loss

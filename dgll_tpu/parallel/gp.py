@@ -1,9 +1,9 @@
 """Graph-partition-parallel full-graph training (shard_map over the mesh).
 
-The TPU-native replacement for the reference's aspirational DistGraph/graph-server
+The replacement for the reference's aspirational DistGraph/graph-server
 layer (README-only; SURVEY.md §0) and its shared-memory graph store: the graph lives
 as sharded ``jax.Array``s on the mesh; each device owns a contiguous destination-row
-shard of the CSR; remote source features arrive via XLA collectives over ICI
+shard of the CSR; remote source features arrive via XLA collectives
 (all_gather v1 — halo/all-to-all optimisation lives in ``dgll_tpu/parallel/halo.py``).
 Gradients sync with ``psum`` inside the same jitted step — DDP+RaCoM replaced by the
 XLA latency-hiding scheduler overlapping the collective with compute.
@@ -16,12 +16,8 @@ from typing import Callable
 import jax
 import jax.numpy as jnp
 import optax
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-
-try:  # jax>=0.6 stable name, fall back for older
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore
 
 from dgll_tpu.parallel.partition import PartitionedGraph
 from dgll_tpu.train.metrics import masked_nll_loss
@@ -55,8 +51,8 @@ def shard_partitioned_graph(pg: PartitionedGraph, mesh: Mesh, axis: str = "data"
 def make_sharded_spmm(mesh: Mesh, pg: PartitionedGraph, axis: str = "data"):
     """Sharded out[i] = sum_e w_e x[src_e] for destination rows owned per device.
 
-    v1 strategy: all_gather the sharded feature matrix over ICI (bandwidth-optimal ring
-    under XLA), aggregate locally. Static shapes; one jitted function.
+    v1 strategy: all_gather the sharded feature matrix (NCCL on GPUs), aggregate
+    locally. Static shapes; one jitted function.
     """
     rows = pg.rows_per_shard
 

@@ -1,4 +1,4 @@
-"""Halo-exchange partitioned SpMM: boundary features move via all_to_all over ICI.
+"""Halo-exchange partitioned SpMM: boundary features move via one all_to_all.
 
 The v2 of ``parallel/gp.py``'s all_gather strategy and the structural centerpiece of
 the multi-host design (SURVEY.md §2.7 / §5): each shard owns a contiguous
@@ -17,15 +17,11 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore
-
 from dgll_tpu.parallel.partition import PartitionedGraph
+from dgll_tpu.utils import struct
 
 
 @struct.dataclass
@@ -145,154 +141,3 @@ def make_partitioned_spmm(mesh: Mesh, pg: PartitionedGraph, feat_dim: int,
     if halo_volume_bytes(pg, plan, feat_dim) < allgather_volume_bytes(pg, feat_dim):
         return make_halo_spmm(mesh, pg, plan, axis), "halo"
     return make_sharded_spmm(mesh, pg, axis), "allgather"
-
-
-# --------------------------------------------------------------- windowed local
-@struct.dataclass
-class ShardWindowed:
-    """Per-shard window-fused layouts, padded to ONE static shape for shard_map.
-
-    Each shard's LOCAL edges (src and dst both owned) that the windowed builder
-    captures ride the gather-free Pallas kernel (``ops/pallas/spmm_windowed``);
-    everything else — residual local edges and remote (halo) edges — keeps the
-    classic remapped segment path via ``remaining_weight`` (the original
-    per-shard weights with captured edges zeroed). Shapes are uniform across
-    shards (layouts padded to the max chunk count), so one shard_map body
-    serves the whole mesh.
-    """
-
-    src_local: jax.Array   # [D, n_sub, n_meta, SUB] int32
-    dst_local: jax.Array   # [D, n_sub, n_meta, SUB] int32
-    weight: jax.Array      # [D, n_sub, n_meta, SUB] float32
-    row_block: jax.Array   # [D, n_chunk] int32
-    win_block: jax.Array   # [D, n_chunk] int32
-    sub_off: jax.Array     # [D, n_chunk, n_sub] int32
-    remaining_weight: jax.Array  # [D, e_shard] float32
-    n_chunk: int = struct.field(pytree_node=False, default=0)
-    eb: int = struct.field(pytree_node=False, default=512)
-    n_rows: int = struct.field(pytree_node=False, default=0)
-    n_cols: int = struct.field(pytree_node=False, default=0)
-    interpret: bool = struct.field(pytree_node=False, default=False)
-    windowed_fraction: float = struct.field(pytree_node=False, default=0.0)
-
-
-def build_shard_windowed(pg: PartitionedGraph) -> ShardWindowed:
-    """Host-side: per-shard windowed layouts over owned-local edges, padded to
-    a common static shape (max chunk count over shards)."""
-    from dgll_tpu.ops.chunked import R_BLOCK, _target_platform
-    from dgll_tpu.ops.windowed import build_windowed
-
-    D, rows = pg.n_shard, pg.rows_per_shard
-    src = np.asarray(pg.src).astype(np.int64)
-    dstl = np.asarray(pg.dst_local).astype(np.int64)
-    w = np.asarray(pg.edge_weight).copy()
-
-    layouts, captured, total = [], 0, 0
-    rem_w = w.copy()
-    for p in range(D):
-        local = ((src[p] // rows) == p) & (w[p] != 0)
-        idx = np.nonzero(local)[0]
-        lay, resid = build_windowed(src[p][idx] - p * rows, dstl[p][idx],
-                                    rows, rows, w[p][idx])
-        layouts.append(lay)
-        keep = np.ones(len(idx), bool)
-        if resid is not None:
-            keep[resid] = False
-        rem_w[p][idx[keep]] = 0.0       # captured edges leave the segment path
-        captured += int(keep.sum())
-        total += int((w[p] != 0).sum())
-
-    n_chunk = max(l.n_chunk for l in layouts)
-    if n_chunk % 2 == 0:
-        n_chunk += 1
-    n_meta = ((n_chunk + 7) // 8) * 8
-    nb = layouts[0].n_rows // R_BLOCK
-
-    def _pad_meta(a, fill):
-        out = np.full((a.shape[0], n_meta, a.shape[2]), fill, a.dtype)
-        out[:, : a.shape[1]] = np.asarray(a)
-        return out
-
-    SL = np.stack([_pad_meta(np.asarray(l.src_local), -1) for l in layouts])
-    DL = np.stack([_pad_meta(np.asarray(l.dst_local), 0) for l in layouts])
-    W = np.stack([_pad_meta(np.asarray(l.weight), 0.0) for l in layouts])
-    RB = np.stack([
-        np.pad(np.asarray(l.row_block), (0, n_chunk - l.n_chunk),
-               constant_values=nb - 1) for l in layouts])
-    WB = np.stack([np.pad(np.asarray(l.win_block), (0, n_chunk - l.n_chunk))
-                   for l in layouts])
-    SO = np.stack([
-        np.pad(np.asarray(l.sub_off), ((0, n_chunk - l.n_chunk), (0, 0)))
-        for l in layouts])
-
-    return ShardWindowed(
-        src_local=jnp.asarray(SL), dst_local=jnp.asarray(DL),
-        weight=jnp.asarray(W), row_block=jnp.asarray(RB),
-        win_block=jnp.asarray(WB), sub_off=jnp.asarray(SO),
-        remaining_weight=jnp.asarray(rem_w),
-        n_chunk=n_chunk, eb=layouts[0].eb,
-        n_rows=layouts[0].n_rows, n_cols=layouts[0].n_cols,
-        interpret=_target_platform() != "tpu",
-        windowed_fraction=captured / max(total, 1),
-    )
-
-
-def make_halo_spmm_windowed(mesh: Mesh, pg: PartitionedGraph, plan: HaloPlan,
-                            sw: ShardWindowed, axis: str = "data"):
-    """Halo-exchange SpMM whose LOCAL aggregation rides the window-fused
-    Pallas kernel per shard (dryrun flow 9 / multi-chip path of the flagship
-    kernel). Remote + residual edges keep the remapped segment path; the
-    collective is the same ONE static all_to_all as :func:`make_halo_spmm`."""
-    from dgll_tpu.ops.pallas.spmm_windowed import spmm_windowed_pallas
-    from dgll_tpu.ops.windowed import WindowedCSR
-
-    rows = pg.rows_per_shard
-
-    @partial(
-        shard_map,
-        mesh=mesh,
-        in_specs=(P(axis, None), P(axis, None, None), P(axis, None, None),
-                  P(axis, None), P(axis, None), P(axis, None),
-                  P(axis, None, None, None), P(axis, None, None, None),
-                  P(axis, None, None, None), P(axis, None), P(axis, None),
-                  P(axis, None, None)),
-        out_specs=P(axis, None),
-        # pallas_call's out ShapeDtypeStruct carries no varying-mesh-axes
-        # annotation; the body is per-shard-local anyway
-        check_vma=False,
-    )
-    def spmm(x_local, send_ids, send_mask, src_remap, dst_local, rem_w,
-             sl, dl, wv, rb, wb, so):
-        send_ids, send_mask = send_ids[0], send_mask[0]
-        src_remap, dst_local, rem_w = src_remap[0], dst_local[0], rem_w[0]
-        out_rows = jnp.take(x_local, send_ids, axis=0)
-        out_rows = out_rows * send_mask[..., None].astype(out_rows.dtype)
-        halo = jax.lax.all_to_all(out_rows, axis, split_axis=0, concat_axis=0,
-                                  tiled=False)
-        ext = jnp.concatenate([x_local, halo.reshape(-1, x_local.shape[-1])],
-                              axis=0)
-        msg = jnp.take(ext, src_remap, axis=0) * rem_w[:, None].astype(
-            x_local.dtype)
-        rest = jax.ops.segment_sum(msg, dst_local, num_segments=rows)
-
-        c = WindowedCSR(
-            src_local=sl[0], dst_local=dl[0], weight=wv[0],
-            row_block=rb[0], win_block=wb[0], sub_off=so[0],
-            n_chunk=sw.n_chunk, eb=sw.eb, n_rows=sw.n_rows, n_cols=sw.n_cols,
-            interpret=sw.interpret)
-        xp = jnp.pad(x_local, ((0, sw.n_cols - x_local.shape[0]), (0, 0)))
-        win = spmm_windowed_pallas(c, xp, interpret=sw.interpret)[:rows]
-        return win.astype(rest.dtype) + rest
-
-    def apply(x):
-        f = x.shape[-1]
-        fp = ((f + 127) // 128) * 128   # kernel wants 128-lane feature tiles
-        if fp != f:
-            x = jnp.pad(x, ((0, 0), (0, fp - f)))
-        out = spmm(x, plan.send_ids, plan.send_mask, plan.src_remap,
-                   pg.dst_local, sw.remaining_weight,
-                   sw.src_local, sw.dst_local, sw.weight,
-                   sw.row_block, sw.win_block, sw.sub_off)
-        return out[:, :f]
-
-    return apply

@@ -1,18 +1,21 @@
 """Multi-process / multi-host launch glue.
 
-TPU-native replacement for the reference's process-group bring-up
+Replacement for the reference's process-group bring-up
 (``/root/reference/dgll/GPU Accelerator/MQGCN.py:100-109,161-163``:
 ``mp.spawn(run, nprocs=num_gpus)`` + ``init_process_group('nccl'|'gloo',
 tcp://127.0.0.1:12345)``). Here every process calls
 :func:`initialize_distributed` (JAX's coordination service plays the TCP
 rendezvous role), after which ``jax.devices()`` spans ALL processes and the
 single-controller mesh code in this package (``make_mesh`` + ``shard_map`` +
-psum/all_to_all) works unchanged across hosts — DCN/ICI routing is XLA's job.
+psum/all_to_all) works unchanged across hosts — routing the collectives is
+XLA's (NCCL's) job.
 
 ``launch_local`` is the ``mp.spawn`` twin for one host: it forks N copies of a
-script with the coordination env preset. With ``JAX_PLATFORMS=cpu`` this is the
-cluster-free distributed test path (the reference's "Gloo on one host" trick,
-SURVEY.md §4).
+script with the coordination env preset and gives child ``k`` the host's
+``k``-th GPU alone (``CUDA_VISIBLE_DEVICES``): a JAX process reserves most of
+every card it opens, so a child must not open its neighbours' cards. With
+``JAX_PLATFORMS=cpu`` this is the cluster-free distributed test path (the
+reference's "Gloo on one host" trick, SURVEY.md §4).
 """
 from __future__ import annotations
 
@@ -65,6 +68,18 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _card_for(pid: int, environ) -> str:
+    """The one GPU child ``pid`` may see: the pid-th of the parent's visible
+    cards (all of the host's when the parent sets none)."""
+    visible = environ.get("CUDA_VISIBLE_DEVICES")
+    if not visible:
+        return str(pid)
+    cards = visible.split(",")
+    if pid >= len(cards):
+        raise ValueError(f"process {pid} has no GPU: CUDA_VISIBLE_DEVICES={visible!r}")
+    return cards[pid]
+
+
 def launch_local(
     n_processes: int,
     argv: Sequence[str],
@@ -73,6 +88,7 @@ def launch_local(
 ) -> List[subprocess.CompletedProcess]:
     """Spawn ``n_processes`` copies of ``argv`` (e.g. ``[sys.executable, script]``)
     with the coordination env preset — the ``mp.spawn`` parity entry point.
+    Child ``k`` sees one GPU, the ``k``-th visible one.
 
     Each child should call :func:`initialize_distributed` early. Returns the
     completed processes; raises if any exits non-zero (with its stderr).
@@ -89,6 +105,7 @@ def launch_local(
         child_env[ENV_COORD] = f"127.0.0.1:{port}"
         child_env[ENV_NPROC] = str(n_processes)
         child_env[ENV_PID] = str(pid)
+        child_env["CUDA_VISIBLE_DEVICES"] = _card_for(pid, os.environ)
         # child output goes to temp files, never pipes: the parent drains
         # children sequentially, and a child blocking on a full 64KB pipe while
         # another waits on a distributed collective deadlocks the whole launch
@@ -134,10 +151,7 @@ if __name__ == "__main__":
     import jax.numpy as jnp
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-    try:
-        from jax import shard_map
-    except ImportError:  # pragma: no cover
-        from jax.experimental.shard_map import shard_map
+    from jax import shard_map
 
     devices = jax.devices()
     mesh = Mesh(devices, ("data",))

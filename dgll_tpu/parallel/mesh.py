@@ -1,6 +1,6 @@
 """Device mesh helpers — the substrate replacing the reference's
 ``torch.distributed`` process groups (``MQGCN.py:100-109``): single-controller JAX,
-named mesh axes, XLA collectives over ICI/DCN.
+named mesh axes, XLA collectives (NCCL on GPUs).
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Graph partitioning for multi-chip training.
 
-TPU-native replacement for COG community reordering + partition books
+Replacement for COG community reordering + partition books
 (``/root/reference/dgll/GPU Accelerator/cog.py:31-45,107-254``, ``utils.py:224-251``):
 nodes are relabeled so each shard owns a **contiguous id range** (so a shard's feature
 rows are a dense slice — the property COG engineered for its cache), and each shard's
@@ -18,9 +18,9 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from dgll_tpu.graph import Graph
+from dgll_tpu.utils import struct
 
 
 @struct.dataclass

@@ -1,6 +1,5 @@
 """Tensor-parallel (feature-dimension) sharding for GNN layers — the TP analog
-from SURVEY.md §2.7 (no counterpart exists in the reference; this is the
-TPU-idiomatic stretch goal).
+from SURVEY.md §2.7 (no counterpart exists in the reference; a stretch goal).
 
 Key structural fact: SpMM aggregation ``out[i] = sum w_e x[src_e]`` is
 *independent per feature column*, so sharding the feature dimension over the
@@ -18,12 +17,8 @@ from typing import Callable
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-
-try:
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore
 
 
 def shard_features(mesh: Mesh, x: jax.Array, axis: str = "model") -> jax.Array:

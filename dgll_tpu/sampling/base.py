@@ -1,6 +1,6 @@
 """Sampling base structures: host-side CSR view + fixed-shape message blocks.
 
-TPU-first re-design of the reference sampler layer
+Re-design of the reference sampler layer
 (``/root/reference/dgll/sampling/base_sampler.py:4-110``): instead of Python-list
 neighbour walks producing ragged ``sugbraph`` edge lists, samplers here emit
 **static-shape padded blocks** so the training step jits once and never recompiles.
@@ -10,7 +10,7 @@ Two block flavours:
 * :class:`Block` — fanout-dense: every destination owns exactly ``fanout`` sampled
   source slots (with replacement; invalid slots masked and zero-weighted). The COO view
   is materialised lazily from an implicit layout, so aggregation is a dense
-  gather + reduce — the TPU-friendly shape.
+  gather + reduce, with no scatter.
 * :class:`SparseBlock` — general bipartite sparse block with per-edge weights, used by
   the layer-wise importance samplers (FastGCN/LADIES) whose blocks are slices of the
   normalised Laplacian.
@@ -25,9 +25,9 @@ from typing import List, Optional, Sequence, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from dgll_tpu.graph import Graph
+from dgll_tpu.utils import struct
 
 
 class HostGraph:
@@ -132,7 +132,7 @@ class WeightedBlock:
     Each destination row owns exactly ``k`` weighted source SLOTS (``slot[i, j]``
     indexes into ``src_ids``; ``weight[i, j]`` carries the rescaled Laplacian
     value, 0 on invalid slots). Aggregation is therefore a dense gather +
-    einsum — no segment/scatter ops — the TPU shape of FastGCN/LADIES' sparse
+    einsum — no segment/scatter ops — the dense form of FastGCN/LADIES' sparse
     ``Q @ x`` (the reference computes it as a scipy-sliced sparse matmul,
     ``GPU Accelerator/MQFastGCN.py:75-88``).
 

@@ -8,7 +8,7 @@ epoch program, so layer-wise sampling composes with the single-dispatch scanned
 epoch (``train/device_pipeline.py``) the same way uniform neighbour sampling
 already does — zero per-batch host work.
 
-Design (TPU-first, all static shapes):
+Design (all static shapes):
 
 * The normalised Laplacian lives in HBM in **ELL layout** ``[N, K]`` (columns +
   values), each row pre-sorted by |value| descending at build time, so the
@@ -43,10 +43,10 @@ from typing import List, Sequence, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from dgll_tpu.sampling.base import WeightedBlock
 from dgll_tpu.sampling.device_sampler import pack_1d, take_packed
+from dgll_tpu.utils import struct
 
 
 @struct.dataclass

@@ -6,9 +6,8 @@ minibatch trainers validate through the sampler — accuracy numbers inherit
 sampling noise. Here every model's ``__call__`` accepts a full :class:`Graph`
 for all layers (``nn/models.py:_layer_inputs``), so exact inference is ONE
 compiled full-graph forward with the minibatch-trained parameters: each layer
-aggregates over the COMPLETE in-neighborhood (through the chunked/windowed
-Pallas layouts when attached, XLA segment ops otherwise). This is the
-sampling-noise-free eval mode the accuracy artifacts use.
+aggregates over the COMPLETE in-neighborhood through the XLA segment ops. This
+is the sampling-noise-free eval mode.
 """
 from __future__ import annotations
 
@@ -24,10 +23,10 @@ import numpy as np
 def make_exact_logits_fn(apply_fn, feat_dtype=None):
     """``f(params, graph, feats) -> log-probs [n_node, C]`` — jitted once.
 
-    ``graph`` is a pytree argument (layouts included), so one compile serves
+    ``graph`` is a pytree argument, so one compile serves
     any graph of the same static shape. Cached per (apply_fn, dtype) so
-    repeated ``exact_predict`` calls hit the same jit cache (flax ``Module``s
-    are frozen dataclasses — their bound ``apply`` hashes stably)."""
+    repeated ``exact_predict`` calls hit the same jit cache (``Module``s are
+    frozen dataclasses — their bound ``apply`` hashes stably)."""
 
     @jax.jit
     def f(params, graph, feats):

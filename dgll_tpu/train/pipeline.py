@@ -2,7 +2,7 @@
 
 The flagship runtime — capability twin of MQ-GNN
 (``/root/reference/dgll/GPU Accelerator/buffer_queues.py`` + ``MQGCN.py``) and the
-cached trainers (``FeatureCache/gcn.py:24-110``), as one coherent TPU-native design:
+cached trainers (``FeatureCache/gcn.py:24-110``), as one coherent design:
 
 * the DataLoader's producer thread samples ahead (MQ-GNN's CPU/GPU queues);
 * features come through :class:`~dgll_tpu.cache.HBMFeatureCache` when the matrix

@@ -43,8 +43,8 @@ class TrainConfig:
     preprocess: bool = False        # offline neigh-feature aggregation (ref gs.py)
     device_sampling: bool = False   # CSR in HBM; epoch = one scanned dispatch
     window_sampling: bool = False   # block-window draws (device_sampling only; opt-in
-                                    # speed mode — within-node draws share one 128-lane
-                                    # CSR window, so they are correlated, a deviation
+                                    # — within-node draws share one 128-slot CSR
+                                    # window, so they are correlated, a deviation
                                     # from the reference's i.i.d. uniform sampling)
     sage_aggregator: str = "mean"   # SAGEConv neighbour aggregator (ref
                                     # NeighborAggregator: mean|sum|max)
@@ -98,11 +98,10 @@ def add_train_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument(
         "--window_sampling", dest="window_sampling", action="store_true",
         default=d.window_sampling,
-        help="device-sampling speed mode: draw each node's neighbors from ONE "
-             "random 128-lane CSR window (fewer HBM row gathers, ~7%% faster "
-             "epochs at products scale). Within-node draws are correlated — a "
-             "statistical deviation from exact i.i.d. neighbor sampling; "
-             "convergence parity evidence: benchmarks/results/window_ab_r4.json")
+        help="device-sampling mode: draw each node's neighbors from ONE "
+             "random 128-slot CSR window (fewer device row gathers). Within-node "
+             "draws are correlated — a statistical deviation from exact i.i.d. "
+             "neighbor sampling")
     p.add_argument("--sage_aggregator", default=d.sage_aggregator,
                    choices=["mean", "sum", "max"])
     p.add_argument("--sage_combine", default=d.sage_combine,

@@ -59,7 +59,7 @@ class PhaseTimer:
 
 @contextlib.contextmanager
 def device_trace(log_dir: str) -> Iterator[None]:
-    """jax.profiler trace context (TensorBoard-compatible) — the TPU twin of the
+    """jax.profiler trace context (TensorBoard-compatible) — the JAX twin of the
     reference's ``torch.autograd.profiler.profile(use_cuda=True)`` wrapper."""
     jax.profiler.start_trace(log_dir)
     try:

@@ -1,8 +1,8 @@
 """Device-resident FastGCN training: the reference's fastest algorithm
 (``MQFastGCN.py:60-88``, the 6.12 ms/batch source) running entirely inside the
 jitted scanned epoch — alias-table importance draws, WeightedBlock dense
-aggregation, compiled eval sweep. Round-4 path; ~4 ms/batch at products scale
-on one v5e (``benchmarks/results/epoch_products_r4.json``).
+aggregation, compiled eval sweep. Its time at products scale on the H100 is not
+measured yet.
 
 Run: python examples/device_fastgcn_gcn.py
 """

@@ -1,12 +1,11 @@
 """Fastest single-chip path: fully device-resident minibatch GraphSAGE.
 
-The graph CSR, features, and labels live in HBM; neighbour sampling happens
-inside the jitted program (block-window mode), and each epoch is ONE dispatch
-(``lax.scan`` over batches). This is the pipeline behind the repo's headline
-number (2.9-3.1 ms/batch including sampling at ogbn-products scale — see
-``benchmarks/results/epoch_products_r3.json``).
+The graph CSR, features, and labels live in device memory; neighbour sampling
+happens inside the jitted program (block-window mode), and each epoch is ONE
+dispatch (``lax.scan`` over batches). This is the pipeline behind bench.py's
+headline number.
 
-Run: ``python examples/device_pipeline_sage.py`` (any backend; fastest on TPU).
+Run: ``python examples/device_pipeline_sage.py`` (any backend; meant for the GPU).
 Equivalent CLI: ``python -m dgll_tpu.run --Model SAGE --device_sampling ...``.
 """
 import sys

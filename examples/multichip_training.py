@@ -5,7 +5,7 @@ Runs on any device count — on a CPU host, launch with a virtual mesh:
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/multichip_training.py
 
-This is the TPU-native replacement for the reference's ``mp.spawn`` + DDP/NCCL
+This is the single-controller replacement for the reference's ``mp.spawn`` + DDP/NCCL
 launchers (``MQGCN.py:94-163``, ``FeatureCache/gcn.py``).
 """
 import os

@@ -67,15 +67,14 @@ def main():
         for g in test_graphs
     ]
 
-    import flax.linen as nn
+    from dgll_tpu.nn.module import Module
 
-    class PPIModel(nn.Module):
+    class PPIModel(Module):
         hidden: int
         n_label: int
 
-        @nn.compact
         def __call__(self, g, x, deterministic=True):
-            h = nn.relu(GCNConv(self.hidden)(g, x))
+            h = jax.nn.relu(GCNConv(self.hidden)(g, x))
             return GCNConv(self.n_label)(g, h)  # logits (bce loss downstream)
 
     model = PPIModel(hidden=args.hidden, n_label=n_label)

@@ -1,4 +1,6 @@
-"""Checkpoint/resume via orbax: save, restore, keep-k, resume training."""
+"""Checkpoint/resume: save, restore, keep-k, resume training."""
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -61,3 +63,43 @@ def test_restore_empty_returns_none(tmp_path):
     assert mgr.latest_step() is None
     assert mgr.restore({"w": np.zeros(3)}) is None
     mgr.close()
+
+
+def test_keep_last_k_prunes_oldest_and_restores_any_kept_step(tmp_path):
+    mgr = CheckpointManager(str(tmp_path / "k"), max_to_keep=2)
+    for step in (5, 10, 15, 20):
+        mgr.save(step, {"w": np.full(3, step, np.float32)})
+    assert mgr.steps() == [15, 20]
+    assert sorted(os.listdir(tmp_path / "k")) == ["ckpt_0000000015.npz",
+                                                  "ckpt_0000000020.npz"]
+    got = mgr.restore({"w": np.zeros(3, np.float32)}, step=15)
+    np.testing.assert_array_equal(got["w"], np.full(3, 15, np.float32))
+
+
+def test_train_state_roundtrip_keeps_tree_and_dtypes(tmp_path, setup):
+    """A whole TrainState (step, params, adam moments) saves and restores into
+    a fresh state's structure; static fields come from the template."""
+    g, model = setup
+    tr = FullBatchTrainer(model, optax.adam(1e-2))
+    state, _ = tr.fit(g, g.node_feat, g.labels, g.train_mask, epochs=2)
+    mgr = CheckpointManager(str(tmp_path / "ts"))
+    mgr.save(2, state)
+    fresh = create_train_state(model, jax.random.key(1), optax.adam(1e-2),
+                               g, g.node_feat)
+    back = mgr.restore(fresh)
+    assert jax.tree.structure(back) == jax.tree.structure(fresh)
+    assert int(back.step) == 2
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(state)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        assert np.asarray(a).dtype == np.asarray(b).dtype
+
+
+def test_save_is_atomic_and_restore_checks_shapes(tmp_path):
+    mgr = CheckpointManager(str(tmp_path / "a"))
+    mgr.save(1, {"w": np.ones((2, 3), np.float32)})
+    # nothing but the finished file is left behind
+    assert os.listdir(tmp_path / "a") == ["ckpt_0000000001.npz"]
+    with pytest.raises(ValueError, match="shape"):
+        mgr.restore({"w": np.zeros((3, 2), np.float32)})
+    with pytest.raises(KeyError):
+        mgr.restore({"v": np.zeros((2, 3), np.float32)})

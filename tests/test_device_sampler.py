@@ -296,6 +296,9 @@ class TestDeviceDPEpochRunner:
             state, loss = runner.run_epoch(state, feats, labels)
         assert float(loss) < float(loss0)
         assert float(loss) < 0.35
+        # the epoch compiled once: the first state is placed like the ones
+        # the epoch returns
+        assert runner.epoch_fn._cache_size() == 1
 
 
 class TestCompiledEval:

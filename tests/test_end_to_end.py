@@ -122,7 +122,7 @@ def test_gin_graph_classification():
 
 def test_bf16_training(g):
     """Models train with bfloat16 compute (params fp32, activations bf16) — the
-    MXU-native dtype policy."""
+    standard mixed-precision policy."""
     model = GCN(hidden=32, n_class=5, dropout=0.0, dtype=jnp.bfloat16)
     tr = FullBatchTrainer(model, optax.adam(1e-2))
     state, hist = tr.fit(g, g.node_feat, g.labels, g.train_mask, epochs=40)

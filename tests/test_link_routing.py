@@ -1,7 +1,7 @@
 """Bandwidth-routed grouped dispatch (VERDICT r4 weak #5 / ask #6).
 
 The packed host pipeline's grouped mode regresses 4.4x on bandwidth-bound
-links (epoch_products_r4.json); ``group="auto"`` must route to group=1 on a
+links; ``group="auto"`` must route to group=1 on a
 slow link and to a real group on an RTT-bound link — verified with fake
 probes, plus a live training run through the auto path.
 """
@@ -12,7 +12,7 @@ from dgll_tpu.train.trainer import choose_packed_group, measure_link
 
 
 def test_choose_group_slow_link_routes_ungrouped():
-    # relay-like: 720 KB/batch at 30 MB/s (24 ms) vs 40 ms RTT -> transfer
+    # slow link: 720 KB/batch at 30 MB/s (24 ms) vs 20 ms RTT -> transfer
     # within the same order as RTT; at 30 MB/s and typical payloads grouping
     # cannot amortise anything once transfer >= rtt
     assert choose_packed_group(720_000, 30e6, rtt=0.02) == 1

@@ -95,6 +95,31 @@ def test_segment_softmax_normalises():
     assert np.all(sums[~nonempty] == 0)
 
 
+@pytest.mark.parametrize("heads", [1, 3])
+@pytest.mark.parametrize("op", ["softmax", "max", "sum"])
+def test_segment_ops_multihead_with_empty_segments(op, heads):
+    """[E, H] data over 8 segments, of which 1, 4 and 7 are empty: each head
+    reduces independently and empty segments come out as 0."""
+    rng = np.random.default_rng(heads)
+    seg = np.sort(rng.choice([0, 2, 3, 5, 6], 30))
+    data = rng.normal(size=(30, heads)).astype(np.float32)
+    want = np.zeros((8, heads) if op != "softmax" else (30, heads))
+    for s in np.unique(seg):
+        rows = data[seg == s]
+        if op == "sum":
+            want[s] = rows.sum(0)
+        elif op == "max":
+            want[s] = rows.max(0)
+        else:
+            ex = np.exp(rows - rows.max(0))
+            want[seg == s] = ex / ex.sum(0)
+    fn = {"softmax": segment_softmax, "max": segment_max, "sum": segment_sum}[op]
+    got = np.asarray(fn(jnp.asarray(data), jnp.asarray(seg), 8))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    if op != "softmax":
+        assert not got[[1, 4, 7]].any()
+
+
 def test_segment_softmax_extreme_logits():
     logits = jnp.asarray([1000.0, 999.0, -1000.0, 5.0])
     seg = jnp.asarray([0, 0, 0, 1])

@@ -395,33 +395,3 @@ def test_range_partition_spmm_matches_oracle():
     expect = np.asarray(spmm_coo(jnp.asarray(src), jnp.asarray(dst),
                                  jnp.asarray(x), pg.n_node, jnp.asarray(w)))
     np.testing.assert_allclose(out, expect, rtol=1e-4, atol=1e-4)
-
-
-@pytest.mark.parametrize("strategy", ["bfs", "contiguous"])
-def test_halo_spmm_windowed_matches_allgather(g, strategy):
-    """Flow-9 path: the window-fused kernel runs PER SHARD under shard_map
-    (interpret mode on the CPU mesh) and the hybrid (windowed local +
-    segment remote/residual) sum equals the all_gather reference."""
-    from dgll_tpu.parallel.halo import (
-        build_halo_plan,
-        build_shard_windowed,
-        make_halo_spmm_windowed,
-    )
-
-    mesh = make_mesh(("data",))
-    pg = partition_graph(g, mesh.devices.size, strategy=strategy)
-    pgs = shard_partitioned_graph(pg, mesh)
-    plan = build_halo_plan(pg)
-    sw = build_shard_windowed(pg)
-    if strategy == "bfs":
-        # locality-aware partition + tiny shards: the builder must capture a
-        # real share of local edges (all-residual would make this path
-        # pointless); contiguous round-robin scatters hubs, so no claim there
-        assert sw.windowed_fraction > 0.3, sw.windowed_fraction
-
-    spmm_ref = make_sharded_spmm(mesh, pgs)
-    spmm_win = make_halo_spmm_windowed(mesh, pgs, plan, sw)
-    x = pg.node_feat
-    out_ref = np.asarray(spmm_ref(x))
-    out_win = np.asarray(jax.jit(spmm_win)(x))
-    np.testing.assert_allclose(out_win, out_ref, rtol=1e-4, atol=1e-4)

@@ -1,4 +1,4 @@
-"""Quantization/binarization: error bounds, gather-dequant, pallas kernel parity."""
+"""Quantization/binarization: error bounds, gather-dequant, stochastic rounding."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -8,7 +8,6 @@ from dgll_tpu.ops.quantize import (
     binarize,
     quantization_error,
     quantize_int8,
-    quantize_int8_pallas,
 )
 
 
@@ -43,13 +42,14 @@ def test_binarize(x):
     assert agree > 0.99
 
 
-def test_pallas_quantizer_matches_xla(x):
+def test_stochastic_quantizer_within_one_step(x):
     qf_x = quantize_int8(x)
-    qf_p = quantize_int8_pallas(x, interpret=True)
-    np.testing.assert_allclose(np.asarray(qf_p.scale), np.asarray(qf_x.scale), rtol=1e-6)
+    qf_s = quantize_int8(x, stochastic=True, seed=3)
+    np.testing.assert_allclose(np.asarray(qf_s.scale), np.asarray(qf_x.scale), rtol=1e-6)
     # stochastic rounding: values within 1 step of deterministic rounding
     diff = np.abs(
-        np.asarray(qf_p.values, np.int32) - np.asarray(qf_x.values, np.int32)
+        np.asarray(qf_s.values, np.int32) - np.asarray(qf_x.values, np.int32)
     )
     assert diff.max() <= 1
-    assert quantization_error(x, qf_p) < 0.02
+    assert diff.max() == 1  # the noise does move some values
+    assert quantization_error(x, qf_s) < 0.02
